@@ -58,7 +58,9 @@ def main():
     ap.add_argument("--use-depth", action="store_true")
     ap.add_argument("--encoding", default="mxgrid", choices=["mxgrid", "hashgrid"])
     args = ap.parse_args()
+    from romap_tpu.utils import jax_env
 
+    jax_env.setup_compile_cache()
     import dataclasses
     cfg = NerfConfig()
     cfg = dataclasses.replace(cfg, encoding=dataclasses.replace(cfg.encoding, kind=args.encoding))

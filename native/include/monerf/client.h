@@ -1,4 +1,4 @@
-// Blocking UNIX-socket client for the TPU runtime server. Thread-safe
+// Blocking UNIX-socket client for the JAX runtime server. Thread-safe
 // (single connection guarded by a mutex; the runtime serializes anyway).
 #pragma once
 

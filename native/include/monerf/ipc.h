@@ -1,4 +1,4 @@
-// Wire protocol between the C++ NerfManager shim and the TPU runtime server
+// Wire protocol between the C++ NerfManager shim and the JAX runtime server
 // (romap_tpu/runtime/server.py). Length-prefixed little-endian frames over a
 // UNIX domain socket:
 //   request:  u32 opcode | u32 payload_len | payload

@@ -1,7 +1,7 @@
 // C++ NerfManagerOnline — the API surface the SLAM frontend links against,
 // preserved from the reference (ref Core/include/nerf_manager.h:54-91) so a
-// Tracking/LocalMapping pipeline drives the TPU runtime exactly the way it
-// drove libMON.so. Compute happens in the runtime-server process (JAX/TPU);
+// Tracking/LocalMapping pipeline drives the JAX runtime exactly the way it
+// drove libMON.so. Compute happens in the runtime-server process (JAX/GPU);
 // this class is a thin shim over the socket protocol.
 //
 // Type mapping vs the reference: Eigen::Matrix4f -> monerf::Mat4 (row-major

@@ -1,7 +1,7 @@
 // Monocular tracking + object pipeline — the rebuilt equivalent of the
 // reference's Tracking/LocalMapping pair (ref src/Tracking.cc:309-2537,
 // src/LocalMapping.cc:58-1292), single-threaded by design: the expensive
-// async half (NeRF training) already lives in the TPU runtime process, so
+// async half (NeRF training) already lives in the JAX runtime process, so
 // the frontend stays a simple deterministic loop.
 //
 // Per frame: ORB -> motion-model pose (PnP) -> local-map tracking ->

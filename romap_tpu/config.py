@@ -26,10 +26,10 @@ from typing import Any
 class EncodingConfig:
     """Learned multiresolution spatial encoding.
 
-    kind == "mxgrid": the TPU-native gather-free factorized encoding
-    (ops/mxgrid.py) — the flagship path.
+    kind == "mxgrid": the gather-free factorized encoding (ops/mxgrid.py)
+    — the flagship path.
     kind == "hashgrid": exact tcnn HashGrid semantics (ops/hashgrid.py,
-    ref base.json:23-29) — reference parity; slow on TPU (gather-bound).
+    ref base.json:23-29) — reference parity.
     The hash-grid fields below also seed the mxgrid resolution ladder.
     """
 
@@ -39,55 +39,47 @@ class EncodingConfig:
     log2_hashmap_size: int = 16
     base_resolution: int = 16
     desired_resolution: float = 2048.0
-    # mxgrid knobs — flagship defaults picked by the round-3..8 speed/quality
-    # ladders on v5e (QUALITY.json): CP 6 levels to 192 @ 48ch + one
-    # RECTANGULAR (128,64,4) plane level with balanced axis assignment runs
-    # ~750 obj-iters/s (vs 628 for the square (128,128,4) it replaced) at a
-    # 5000-step seed-0 PSNR of 28.81 dB — 0.24 dB under the tcnn-semantics
-    # hash grid anchor (29.05), inside BASELINE.md's 0.5 dB parity budget;
-    # 3-seed mean is 25.95 vs 26.22 for square (−0.27 dB, ≈ the 0.3 dB seed
-    # spread). The walls are measured: CP k32 (28.39) and p3 (28.44) fall
-    # below the 28.55 parity floor; rv=48 (27.80 uuv) degrades too far;
-    # rv=96 is slower AND no better (28.13 balanced); 6 plane channels lose
-    # both speed and quality. The square (128,128,4) level remains the
-    # quality-headroom option (+0.3 dB seed-0 at ~19% cost).
+    # mxgrid knobs — flagship defaults: CP 6 levels to 192 @ 48ch + one
+    # RECTANGULAR (128,64,4) plane level with balanced axis assignment.
+    # Quality, measured before the move to the GPU (5000 steps, seed 0):
+    # 28.81 dB, 0.24 dB under the tcnn-semantics hash grid anchor (29.05),
+    # inside BASELINE.md's 0.5 dB parity budget; 3-seed mean 25.95 vs 26.22
+    # for the square (128,128,4) level. Below the parity floor (28.55):
+    # CP k32 (28.39), p3 (28.44), rv=48 (27.80 uuv). The speed side of
+    # this choice has not been measured on the GPU (see PERF.md).
     mx_levels: int = 6
     mx_max_resolution: int = 192
     mx_features: int = 48
     # VM plane-x-line components (TensoRF-style): restore full-rank texture
     # capacity that rank-limited CP lines lack. An int is a square plane;
-    # an (ru, rv) pair is rectangular — on TPU the u axis contracts on the
-    # MXU while v reduces on the VPU, so rv < ru trades v-detail for
-    # near-linear speedup (flagship: (128, 64)). features 0 disables.
+    # an (ru, rv) pair is rectangular — the u axis contracts by matmul while
+    # v reduces per point, so rv < ru trades v-detail for work
+    # (flagship: (128, 64)). features 0 disables.
     mx_plane_res: int | tuple[int, int] = (128, 64)
     mx_plane_features: int = 4
     # Multi-level plane ladder — overrides the single mx_plane_res/
     # mx_plane_features level when set. Entries are (res, feats) squares or
     # (ru, rv, feats) rectangles.
     mx_plane_specs: tuple[tuple[int, ...], ...] | None = None
-    # Plane-pair axis assignment: "uuv" (pairs contract x,x,y on the MXU) or
+    # Plane-pair axis assignment: "uuv" (pairs contract x,x,y by matmul) or
     # "balanced" (every axis gets one fine-u and one coarse-v appearance —
     # matters for rectangular planes where rv < ru, where "uuv" starves z).
     mx_plane_axes: str = "balanced"
-    # "auto": fused Pallas kernel on TPU, chunked XLA elsewhere;
-    # "pallas" / "xla" force an implementation.
-    mx_impl: str = "auto"
     # Fold the multi-level CP ladder through the finest level's tent basis
     # (mxgrid.MXGridSpec.snap_levels): coarse hats are snapped to fine-grid
     # knots and the fold matrix is absorbed into the line weights per step.
-    # Cuts the kernel's VPU hat-build and CP-matmul work ~2.7x at the
-    # flagship ladder. Slightly different (equally valid) basis. Default ON
-    # since round 5 on three-way evidence: bench 936.29 vs 738.17
-    # obj-iters/s, its OWN 3-seed parity gate at 0.052 dB (tighter than
-    # the unsnapped 0.189), and an end-to-end online run within noise of
-    # the unsnapped row (21.19 vs 21.39 dB, IoU 0.990 both, seed 1).
-    # MX_SNAP=1/0 overrides at runtime for A/B runs.
+    # Cuts the hat-build and CP-matmul work ~2.4x at the flagship ladder.
+    # Slightly different (equally valid) basis. Quality, measured before
+    # the move to the GPU: its 3-seed parity gate at 0.052 dB (unsnapped
+    # 0.189), and an online run within noise of the unsnapped one (21.19
+    # vs 21.39 dB, IoU 0.990 both, seed 1). MX_SNAP=1/0 overrides at
+    # runtime for A/B runs.
     mx_snap_levels: bool = True
     # hash-grid (tcnn-parity path) lookup implementation:
     # "gather" = direct XLA gather + scatter-add transpose;
     # "sorted" = argsort indices once, then sorted gather + sorted
-    # segment-sum table gradient (TPU scatter-add serializes on the hash
-    # collisions a hash table guarantees; sorting removes them).
+    # segment-sum table gradient (removes the hash collisions a serialized
+    # scatter-add would contend on; ROADMAP C2 decides whether it stays).
     hash_impl: str = "gather"
 
     @property
@@ -121,17 +113,15 @@ class EncodingConfig:
 
     @classmethod
     def preset(cls, name: str) -> "EncodingConfig":
-        """Named speed/quality points from the v5e ladder (QUALITY.json).
+        """Named encoding points. PSNRs are 5000-step seed-0 figures
+        measured before the move to the GPU; their speed on the GPU is not
+        measured yet (PERF.md).
 
-        flagship — default: ~729 obj-iters/s (headline bench), 28.81 dB
-                   @ 5000 steps seed-0 (QUALITY.json speeds_r8/psnr_multiseed;
-                   0.24 dB under the tcnn anchor, inside the 0.5 dB budget).
-        fast     — CP-only, 852 obj-iters/s, 28.26 dB (outside the 0.5 dB
-                   parity budget; for throughput-bound many-object scenes).
-        quality  — cp256_k64 + (128,8) planes, 434 obj-iters/s, 29.29 dB
-                   (best PSNR).
-        tcnn     — exact tcnn HashGrid semantics (29.05 dB; gather-bound on
-                   TPU, ~0.9 s/iter — parity/debug only).
+        flagship — default: 28.81 dB (0.24 dB under the tcnn anchor,
+                   inside the 0.5 dB budget).
+        fast     — CP-only, 28.26 dB (outside the 0.5 dB parity budget).
+        quality  — cp256_k64 + (128,8) planes, 29.29 dB (best PSNR).
+        tcnn     — exact tcnn HashGrid semantics (29.05 dB; parity/debug).
         """
         presets = {
             "flagship": cls(),
@@ -192,8 +182,8 @@ class TrainConfig:
     mc_threshold: float = 2.0
     # dtype of the compute path; params stay fp32 and the render/mesh paths
     # force fp32 regardless (ref renders fp32, nerf_model.cu:1795).
-    # "auto" = bfloat16 on TPU (matches the reference's fp16 training),
-    # float32 on CPU (XLA CPU emulates bf16 ~5x slower — tests/dev only).
+    # "auto" = bfloat16 on an accelerator (matches the reference's fp16
+    # training), float32 on CPU (XLA CPU emulates bf16 slowly — tests/dev).
     compute_dtype: str = "auto"  # "auto" | "bfloat16" | "float32"
 
 

@@ -26,6 +26,7 @@ import re
 import numpy as np
 
 from romap_tpu.utils.camera import invert_pose, pose_from_tq
+from romap_tpu.utils.png import read_png, write_png
 
 
 def load_opencv_yaml(path: str) -> dict[str, float | str]:
@@ -106,24 +107,17 @@ def load_dataset_meta(root: str, use_depth: bool = False) -> DatasetMeta:
 def load_frame_images(meta: DatasetMeta, idx: int, use_depth: bool = False):
     """-> (rgb u8 [H,W,3] RGB order, depth f32 [H,W] scaled or None,
     instance u8 [H,W]); mirrors NeRF_Dataset::DataToGPU (ref :153-217)."""
-    import cv2
-
     name = meta.image_names[idx]
-    rgb = cv2.imread(os.path.join(meta.root, "rgb", name), cv2.IMREAD_COLOR)
-    if rgb is None:
-        raise FileNotFoundError(f"Can not read image... path: rgb/{name}")
-    rgb = cv2.cvtColor(rgb, cv2.COLOR_BGR2RGB)
+    rgb = read_png(os.path.join(meta.root, "rgb", name))
+    if rgb.ndim == 2:
+        rgb = np.repeat(rgb[..., None], 3, axis=2)
     depth = None
     if use_depth:
-        d = cv2.imread(os.path.join(meta.root, "depth", name), cv2.IMREAD_UNCHANGED)
-        if d is None:
-            raise FileNotFoundError(f"Can not read image... path: depth/{name}")
+        d = read_png(os.path.join(meta.root, "depth", name))
         # reference converts u16 -> f32 * (1/DepthMapFactor)? No: * factor
         # directly (ref nerf_data.cu:182, convertTo(..., mfDepthScale)).
         depth = d.astype(np.float32) * meta.depth_scale
-    inst = cv2.imread(os.path.join(meta.root, "instance", name), cv2.IMREAD_UNCHANGED)
-    if inst is None:
-        raise FileNotFoundError(f"Can not read image... path: instance/{name}")
+    inst = read_png(os.path.join(meta.root, "instance", name))
     if inst.ndim == 3:
         inst = inst[..., 0]
     return rgb, depth, inst.astype(np.uint8)
@@ -167,8 +161,6 @@ def write_dataset(root: str, cam, frames: list[dict], objects=None, use_depth=Tr
     (data/synthetic.make_sequence output). Depth is stored as 16-bit PNG with
     DepthMapFactor chosen so depth_png * factor = meters (factor 1/5000,
     TUM-style)."""
-    import cv2
-
     from romap_tpu.utils.camera import rot_to_quat
 
     os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
@@ -191,14 +183,11 @@ def write_dataset(root: str, cam, frames: list[dict], objects=None, use_depth=Tr
         fgt.write("# stamp tx ty tz qx qy qz qw\n")
         for i, fr in enumerate(frames):
             name = f"{i:06d}.png"
-            cv2.imwrite(
-                os.path.join(root, "rgb", name),
-                cv2.cvtColor(fr["rgb"], cv2.COLOR_RGB2BGR),
-            )
-            cv2.imwrite(os.path.join(root, "instance", name), fr["instance"])
+            write_png(os.path.join(root, "rgb", name), fr["rgb"])
+            write_png(os.path.join(root, "instance", name), fr["instance"])
             if use_depth:
                 d16 = np.clip(fr["depth"] / factor, 0, 65535).astype(np.uint16)
-                cv2.imwrite(os.path.join(root, "depth", name), d16)
+                write_png(os.path.join(root, "depth", name), d16)
             fimg.write(f"{fr['stamp']} {name}\n")
             twc = fr["twc"]
             q = rot_to_quat(twc[:3, :3])

@@ -1,4 +1,4 @@
-"""Multiresolution hash-grid encoding (instant-ngp), TPU-native.
+"""Multiresolution hash-grid encoding (instant-ngp) in JAX.
 
 Functional equivalent of tiny-cuda-nn's HashGrid encoding as configured by the
 reference (ref Core/configs/base.json:23-29, nerf_model.cu:1299-1306):
@@ -16,7 +16,7 @@ Faithful to tcnn semantics (third_party/tiny-cuda-nn grid encoding):
   * trilinear interpolation over the 8 cell corners
   * init            U[-1e-4, 1e-4]
 
-Design (TPU): all levels live in ONE [total_params, F] table per object; the
+Design: all levels live in ONE [total_params, F] table per object; the
 forward pass computes corner indices for all L levels and 8 corners and issues
 a single XLA gather of [P, L*8] rows, then does the trilinear reduction as
 dense vector math. The backward pass is XLA's gather transpose (scatter-add),
@@ -116,8 +116,8 @@ def encode(table: jax.Array, x: jax.Array, spec: HashGridSpec,
       impl: "gather" (direct XLA gather; backward is XLA's scatter-add
         transpose) or "sorted" (argsort the corner indices once, gather in
         sorted order, and accumulate the table gradient with a SORTED
-        segment-sum — a hash table guarantees index collisions, which
-        serialize TPU scatter-adds; sorting removes them). Both are exact
+        segment-sum — a hash table guarantees index collisions, on which
+        a scatter-add can serialize; sorting removes them). Both are exact
         in fp32 up to summation order.
 
     Returns:
@@ -175,7 +175,7 @@ def encode(table: jax.Array, x: jax.Array, spec: HashGridSpec,
 
 
 # ------------------------------------------------------------- sorted impl
-# TPU scatter-adds serialize on duplicate indices, and a hash grid
+# Scatter-adds can serialize on duplicate indices, and a hash grid
 # guarantees duplicates (collisions + shared cell corners at coarse
 # levels). Sorting the flat corner indices once per call turns the
 # backward into a sorted segment-sum and lets the forward gather declare

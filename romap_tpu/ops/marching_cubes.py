@@ -1,4 +1,4 @@
-"""Marching cubes, TPU-style: two vectorized passes + host compaction.
+"""Marching cubes, vectorized: two array passes + host compaction.
 
 Replaces the reference's atomic-counter CUDA implementation (instant-ngp's
 gen_vertices / gen_faces, ref marching_cubes.cu:41-470) with:

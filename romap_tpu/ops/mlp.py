@@ -4,8 +4,8 @@ The reference uses tcnn's FullyFusedMLP with 64 neurons, 1 hidden layer, ReLU,
 no output activation, input = 32 hash-grid features, output = 4 (rgb, sigma)
 (ref base.json:30-38, nerf_model.cu:1318). tcnn MLPs have no bias terms.
 
-On TPU these are plain MXU matmuls; XLA fuses the ReLU. Batching over objects
-is an outer vmap over the weight pytree.
+These are plain matmuls; XLA fuses the ReLU. Batching over objects is an
+outer vmap over the weight pytree.
 """
 
 from __future__ import annotations
@@ -43,23 +43,3 @@ def apply_mlp(params: dict, x: jax.Array, cfg: NetworkConfig) -> jax.Array:
             jnp.dot(h, params[f"w{i}"], preferred_element_type=h.dtype), 0.0
         )
     return jnp.dot(h, params[f"w{n_mats - 1}"], preferred_element_type=jnp.float32)
-
-
-def _dot_wt_x(w: jax.Array, x: jax.Array, out_dtype) -> jax.Array:
-    """w [in, out], x [in, P] -> w^T @ x [out, P] without materializing w^T."""
-    return jax.lax.dot_general(
-        w, x, (((0,), (0,)), ((), ())), preferred_element_type=out_dtype
-    )
-
-
-def apply_mlp_t(params: dict, x_t: jax.Array, cfg: NetworkConfig) -> jax.Array:
-    """Transposed apply: x_t [in_dim, P] -> raw outputs [4, P].
-
-    Same contractions as apply_mlp with both operands transposed (the MXU
-    does not care about orientation); used by the points-in-lanes Pallas
-    field so no [P, in_dim] relayout is ever needed."""
-    n_mats = cfg.n_hidden_layers + 1
-    h = x_t
-    for i in range(n_mats - 1):
-        h = jnp.maximum(_dot_wt_x(params[f"w{i}"], h, h.dtype), 0.0)
-    return _dot_wt_x(params[f"w{n_mats - 1}"], h, jnp.float32)

@@ -1,33 +1,31 @@
-"""MX-grid: a gather-free, MXU-native learned positional encoding.
+"""MX-grid: a gather-free learned positional encoding built from matmuls.
 
-Why this exists: the reference's hash-grid encoding (tiny-cuda-nn HashGrid,
-ref nerf_model.cu:1299-1306) is built around random 8-byte fetches — perfect
-for GPU L2, hostile to a TPU. XLA's gather/scatter on TPU runs at ~1 row per
-several cycles, so the 16.7M lookups per train step (131072 points x 16
-levels x 8 corners) are 3-4 orders of magnitude off the chip's speed of
-light, and Mosaic's `tpu.dynamic_gather` only shuffles within one vreg (8
-sublanes), so a Pallas kernel cannot fix the memory pattern either. Measured
-on v5e: XLA take ~26-175M rows/s -> >45ms per object-step just for the
-encode forward. See ops/hashgrid.py for the (kept, tested) parity
-implementation.
-
-The TPU-native replacement expresses the same idea — a learned multi-
-resolution spatial table with linear interpolation — as dense matmuls:
+The reference's hash-grid encoding (tiny-cuda-nn HashGrid, ref
+nerf_model.cu:1299-1306) reads eight random table rows per point and level.
+This encoding expresses the same idea -- a learned multi-resolution spatial
+table with linear interpolation -- as dense matrix products:
 
   1. hat basis   H_d(p) = concat_l hat_{R_l}(p_d)   in [P, sum_l R_l]
      where hat_R(x)[i] = max(0, 1 - |x*(R-1) - i|) is the linear-
      interpolation (tent) basis at resolution R. Two nonzeros per row, but
-     built and consumed DENSE — the VPU builds it, the MXU eats it.
+     built and consumed dense.
   2. axis factors A_d = H_d @ W_d,  W_d in [sum_l R_l, K]   (one per axis)
   3. feature      f(p) = A_x * A_y * A_z   in [P, K]  (CP / TensoRF-style
      rank decomposition: product of per-axis factors)
 
-Everything — forward, and, crucially, the parameter gradient
-(dW_d = H_d^T @ (df * A_e * A_f)) — is an MXU matmul; there is no gather and
-no scatter anywhere. Capacity knobs: per-axis resolutions (multi-level, like
-instant-ngp's geometric ladder) and K channels. Off-level coupling is free
-extra capacity: W_d is dense over the concatenated ladder, so each channel
-learns its own multi-resolution 1D basis.
+Forward and parameter gradient (dW_d = H_d^T @ (df * A_e * A_f)) are matrix
+products; there is no gather and no scatter. Capacity knobs: per-axis
+resolutions (multi-level, like instant-ngp's geometric ladder) and K
+channels. W_d is dense over the concatenated ladder, so each channel learns
+its own multi-resolution 1D basis.
+
+Precision contract (bf16 parameters): coordinates and tent bases are built
+in float32; a basis is cast to the parameter dtype only as a matmul operand;
+every product accumulates in float32 (`preferred_element_type`); the CP
+products and plane contractions run in float32 and the features are cast
+once, at the end. A bf16 coordinate is ~0.75 of a cell coarse at resolution
+192, so rounding the points themselves would wreck the encoding; rounding
+only the parameters costs ~0.5% relative error at flagship width.
 
 This is the flagship encoding (config.encoding.kind == "mxgrid");
 "hashgrid" remains available for reference-parity experiments.
@@ -36,7 +34,6 @@ This is the flagship encoding (config.encoding.kind == "mxgrid");
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import jax
 import jax.numpy as jnp
@@ -54,13 +51,12 @@ class MXGridSpec:
     # VM (TensoRF-style) plane-x-line components: rank-limited CP lines
     # underfit full-rank 3D texture; 2D planes restore it, still gather-free
     # (plane sampling = hat matmul + per-point contraction). A LADDER of
-    # (res_u, res_v, channels) levels. The two resolutions are independent
-    # because only the u axis is contracted on the MXU (cost per point per
-    # plane pair = K * res_u * B(res_v) MACs on TPU) while v reduces on the
-    # VPU — rectangular planes buy v-detail nearly free.
+    # (res_u, res_v, channels) levels. The two resolutions are independent:
+    # the u axis is contracted by a matmul (K * res_u * res_v MACs per
+    # point per plane pair) while v reduces elementwise per point.
     plane_specs: tuple[tuple[int, int, int], ...] = ()  # ((ru, rv, k), ...)
     # (u, v, orthogonal-line) axis assignment of the three plane pairs.
-    # Default "uuv" contracts x,x,y on the MXU (u) — with rectangular
+    # Default "uuv" contracts x,x,y by matmul (u) — with rectangular
     # planes (rv < ru) that starves z (it only ever appears as a coarse v
     # axis). "balanced" = ((0,1,2),(2,0,1),(1,2,0)) gives every axis one
     # fine-u and one coarse-v appearance.
@@ -70,10 +66,10 @@ class MXGridSpec:
     # level's tent basis: every coarse hat is (re)defined as its linear
     # interpolation on the finest grid, hat_l = C_l @ hat_fine, and the
     # constant fold matrix C is absorbed into the line weights per step
-    # (W_eff = C^T W — one tiny matmul per step, not per point). The kernel
-    # then builds ONE [r_fine, T] basis per axis instead of the [total_res,
-    # T] concatenated stack — for the flagship ladder (16..192, total 465
-    # pad 512) that is 2.7x less VPU hat work AND 2.7x less CP-matmul MXU
+    # (W_eff = C^T W — one tiny matmul per step, not per point). The encode
+    # then builds ONE [T, r_fine] basis per axis instead of the [T,
+    # total_res] concatenated stack — for the flagship ladder (16..192,
+    # total 465) that is 2.4x less hat-building AND 2.4x less CP-matmul
     # work per axis. Semantics: coarse-level features become piecewise-
     # linear with knots on the FINE grid (identical at fine nodes); when
     # every (r_l - 1) divides (r_fine - 1) the fold is EXACT, otherwise
@@ -86,10 +82,9 @@ class MXGridSpec:
         return 3 * sum(k for _, _, k in self.plane_specs)
 
     @property
-    def fold_res(self) -> tuple[int, int]:
-        """(finest resolution, 16-padded row count) of the folded basis."""
-        rf = max(self.resolutions)
-        return rf, ((rf + 15) // 16) * 16
+    def fold_res(self) -> int:
+        """Resolution of the folded basis: the finest level's."""
+        return max(self.resolutions)
 
     @property
     def n_output_dims(self) -> int:
@@ -97,22 +92,21 @@ class MXGridSpec:
 
 
 def fold_matrix(spec: MXGridSpec) -> np.ndarray:
-    """[total_res, rfp] fold: row (level l, index b) holds coarse hat b of
+    """[total_res, rf] fold: row (level l, index b) holds coarse hat b of
     level l sampled at the finest grid's nodes, so C @ hat_fine(x) is the
     fine-grid linear interpolation of the whole concatenated multi-level
-    basis. The finest level's block is the identity; rfp pad columns are
-    zero (and the matching hat pad rows are exactly zero)."""
-    rf, rfp = spec.fold_res
-    c = np.zeros((spec.total_res, rfp), np.float32)
+    basis. The finest level's block is the identity."""
+    rf = spec.fold_res
+    c = np.zeros((spec.total_res, rf), np.float32)
     nodes = np.arange(rf, dtype=np.float64) / (rf - 1)
     for r, off in zip(spec.resolutions, spec.offsets):
         z = nodes[None, :] * (r - 1) - np.arange(r, dtype=np.float64)[:, None]
-        c[off : off + r, :rf] = np.maximum(0.0, 1.0 - np.abs(z))
+        c[off : off + r] = np.maximum(0.0, 1.0 - np.abs(z))
     return c
 
 
 def fold_lines(lines: jax.Array, spec: MXGridSpec) -> jax.Array:
-    """W [3, total_res, K] -> effective fine-basis weights [3, rfp, K]
+    """W [3, total_res, K] -> effective fine-basis weights [3, rf, K]
     (fp32 contraction, cast back to the parameter dtype)."""
     c = jnp.asarray(fold_matrix(spec))
     out = jnp.einsum("drk,rf->dfk", lines.astype(jnp.float32), c,
@@ -203,38 +197,42 @@ def _hat1(x: jax.Array, r: int) -> jax.Array:
 _PLANE_AXES = ((0, 1, 2), (0, 2, 1), (1, 2, 0))  # (u, v, orthogonal line)
 
 
+def _dot(basis: jax.Array, w: jax.Array) -> jax.Array:
+    """fp32 tent basis x weights: the basis is rounded to the weights' dtype
+    only as a matmul operand, and the product accumulates in fp32."""
+    return jnp.dot(basis.astype(w.dtype), w, preferred_element_type=jnp.float32)
+
+
 def _encode_chunk(factors, pts: jax.Array, spec: MXGridSpec) -> jax.Array:
-    """[C, 3] -> [C, n_output_dims]; hat bases live only inside here."""
+    """fp32 [C, 3] -> fp32 [C, n_output_dims]; hat bases live only here."""
     lines = factors["lines"] if isinstance(factors, dict) else factors
     ax = []
     for d in range(3):
         if spec.snap_levels:
-            # lines arrive pre-folded ([3, rfp, K], see encode()): one
+            # lines arrive pre-folded ([3, rf, K], see encode()): one
             # finest-level hat replaces the concatenated ladder stack
-            h = _hat1(pts[:, d], spec.fold_res[0])
-            w = lines[d][: h.shape[1]]
+            h = _hat1(pts[:, d], spec.fold_res)
+            w = lines[d]
         else:
             h = hat_basis(pts[:, d], spec)
             w = lines[d]
-        ax.append(jnp.dot(h, w, preferred_element_type=lines.dtype))
+        ax.append(_dot(h, w))
     out = ax[0] * ax[1] * ax[2]
     if not isinstance(factors, dict):
         return out
 
     # VM components: bilinear plane sample x linear orthogonal-line sample,
-    # all dense (hat matmul on the MXU + per-point contraction on the VPU)
+    # all dense (hat matmul over u + per-point contraction over v)
     c = pts.shape[0]
     blocks = [out]
     for lvl, (ru, rv, kp) in enumerate(spec.plane_specs):
         for i, (u, v, w) in enumerate(spec.plane_axes):
             hu = _hat1(pts[:, u], ru)  # [C, Ru]
             hv = _hat1(pts[:, v], rv)
-            t = jnp.dot(hu, factors["planes"][lvl][i].reshape(ru, rv * kp),
-                        preferred_element_type=hu.dtype)  # [C, Rv*Kp]
+            t = _dot(hu, factors["planes"][lvl][i].reshape(ru, rv * kp))  # [C, Rv*Kp]
             f_pl = jnp.sum(t.reshape(c, rv, kp) * hv[:, :, None], axis=1)  # [C, Kp]
-            f_li = jnp.dot(_hat1(pts[:, w], max(ru, rv)),
-                           factors["plane_lines"][lvl][i],
-                           preferred_element_type=hu.dtype)  # [C, Kp]
+            f_li = _dot(_hat1(pts[:, w], max(ru, rv)),
+                        factors["plane_lines"][lvl][i])  # [C, Kp]
             blocks.append(f_pl * f_li)
     return jnp.concatenate(blocks, axis=-1)
 
@@ -244,7 +242,9 @@ def encode(factors: jax.Array, p: jax.Array, spec: MXGridSpec) -> jax.Array:
 
     Points are processed in chunks of spec.chunk under jax.checkpoint: the
     [C, total_res] hat basis is rebuilt in the backward pass instead of being
-    saved (it is 2 VPU ops per element — far cheaper than storing ~GBs).
+    saved (it is 2 elementwise ops per entry — far cheaper than storing
+    ~GBs). Points and bases stay fp32 whatever the parameter dtype (see the
+    module docstring's precision contract).
 
     Args:
       factors: [3, total_res, K].
@@ -262,7 +262,7 @@ def encode(factors: jax.Array, p: jax.Array, spec: MXGridSpec) -> jax.Array:
             factors = dict(factors, lines=fold_lines(factors["lines"], spec))
         else:
             factors = fold_lines(factors, spec)
-    pts = p.reshape(-1, 3).astype(dtype)
+    pts = p.reshape(-1, 3).astype(jnp.float32)
     n = pts.shape[0]
     chunk = spec.chunk
     k = spec.n_output_dims
@@ -275,4 +275,4 @@ def encode(factors: jax.Array, p: jax.Array, spec: MXGridSpec) -> jax.Array:
         tiles = padded.reshape(-1, chunk, 3)
         out = jax.lax.map(lambda q: chunk_fn(factors, q), tiles)
         out = out.reshape(-1, k)[:n]
-    return out.reshape(*batch_shape, k)
+    return out.reshape(*batch_shape, k).astype(dtype)

@@ -1,1 +1,1 @@
-"""Device mesh + sharding of the object axis across TPU chips."""
+"""Device mesh + sharding of the object axis across devices."""

@@ -2,9 +2,10 @@
 
 The reference's multi-GPU story is single-host only: replicate the dataset
 to every GPU and round-robin objects (ref nerf_manager.cu:202-217); there
-is no cross-machine path at all. For TPU pods the natural extension keeps
-the same shape — the object axis shards over the GLOBAL device mesh (ICI
-within a slice, DCN across hosts), the frame store is replicated per host,
+is no cross-machine path at all. Across hosts the natural extension keeps
+the same shape — the object axis shards over the GLOBAL device mesh
+(NVLink within a host, the network across hosts), the frame store is
+replicated per host,
 and, because objects are embarrassingly parallel, the train step still
 lowers with ZERO collectives: each process executes only its local object
 rows, and nothing ever crosses DCN except the coordination-service

@@ -1,10 +1,12 @@
-"""Object-axis sharding over a TPU mesh.
+"""Object-axis sharding over a device mesh.
 
 The reference scales to multiple GPUs by replicating the whole dataset to
 every GPU and round-robin-assigning objects (ref nerf_manager.cu:202-217,
-nerf.cu:27-33); GPUs never communicate. The TPU-native equivalent
-(SURVEY.md §2.3): a 1D jax mesh over the ICI, the OBJECT axis of every
-batched state leaf sharded across chips ("dp over objects" — objects are
+nerf.cu:27-33); GPUs never communicate. The batched equivalent
+(SURVEY.md §2.3): a 1D jax mesh over the local devices (on four H100s
+NVLink joins every card to every other, so the mesh follows the algorithm
+alone), the OBJECT axis of every batched state leaf sharded across cards
+("dp over objects" — objects are
 embarrassingly parallel, so the train step lowers with zero collectives),
 and the keyframe store replicated (it is shared, read-only input).
 

@@ -27,27 +27,20 @@ from romap_tpu.ops import marching_cubes as mc
 from romap_tpu.runtime.renderer import orbit_poses, render_view
 from romap_tpu.utils.camera import rot_to_quat
 from romap_tpu.utils.mesh_io import save_obj, save_ply
+from romap_tpu.utils.png import write_png
 
 
 def _imwrite_rgb(path: str, rgb01: np.ndarray) -> None:
-    import cv2
-
-    cv2.imwrite(path, cv2.cvtColor(
-        np.clip(rgb01 * 255.0, 0, 255).astype(np.uint8), cv2.COLOR_RGB2BGR
-    ))
+    write_png(path, np.clip(rgb01 * 255.0, 0, 255).astype(np.uint8))
 
 
 def _imwrite_depth16(path: str, depth: np.ndarray) -> None:
-    import cv2
-
     # x20000 "looks obvious" (ref nerf.cu:343-345)
-    cv2.imwrite(path, np.clip(depth * 20000.0, 0, 65535).astype(np.uint16))
+    write_png(path, np.clip(depth * 20000.0, 0, 65535).astype(np.uint16))
 
 
 def _imwrite_mask(path: str, mask: np.ndarray) -> None:
-    import cv2
-
-    cv2.imwrite(path, np.clip(mask * 255.0, 0, 255).astype(np.uint8))
+    write_png(path, np.clip(mask * 255.0, 0, 255).astype(np.uint8))
 
 
 def extract_object_mesh(params_one, aabb_min, aabb_max, cfg, spec) -> mc.Mesh:

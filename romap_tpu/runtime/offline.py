@@ -1,7 +1,7 @@
 """Offline multi-object NeRF training — the OfflineNeRF equivalent.
 
 Mirrors the reference pipeline (ref dependencies/Multi-Object-NeRF/main.cpp:
-287-343 + NerfManagerOffline nerf_manager.cu:9-130) with the TPU-native
+287-343 + NerfManagerOffline nerf_manager.cu:9-130) with the batched
 architecture: instead of one dataset replica + one training thread per
 object, ONE device frame store and ONE batched train step advance every
 object together. The reference's fixed schedule is 10 waves x 500 steps with
@@ -62,10 +62,10 @@ class OfflineRunner:
         # compare like with like, so None (reference parity) stays the
         # default and seed/adversarial studies pass the online protocol's 4.
         self.holdout = holdout
-        # Multi-chip by default: object-axis dp over the local device mesh,
-        # capacity padded to a mesh multiple; frames replicated (the
-        # TPU-native form of the reference's one-replica-per-GPU offline
-        # path, ref nerf_manager.cu:9-130). device_mesh pins the devices.
+        # Multi-device by default: object-axis dp over the local device
+        # mesh, capacity padded to a mesh multiple; frames replicated (the
+        # batched form of the reference's one-replica-per-GPU offline path,
+        # ref nerf_manager.cu:9-130). device_mesh pins the devices.
         self.device_mesh = device_mesh or shardlib.make_mesh()
 
         self.meta: DatasetMeta = load_dataset_meta(dataset_path, use_depth)
@@ -243,7 +243,9 @@ def main(argv: list[str] | None = None) -> None:
                     "dense_holdout; default: reference parity, train on "
                     "all views)")
     args = ap.parse_args(argv)
+    from romap_tpu.utils import jax_env
 
+    jax_env.setup_compile_cache()
     cfg = (NerfConfig() if args.network_config == "-"
            else load_network_config(args.network_config))
     train_kw = {}

@@ -18,7 +18,7 @@ mkdir -p "$ROOT"
 for SC in "${SCENES[@]}"; do
   OUT="$ROOT/${SC}_online"
   if [ ! -f "$OUT/eval.json" ]; then
-    # a previous timed-out run may have left its server holding the TPU
+    # a previous timed-out run may have left its server holding the card
     if [ -f "$OUT/server.pid" ]; then
       kill "$(cat "$OUT/server.pid")" 2>/dev/null || true
       sleep 2
@@ -28,7 +28,7 @@ for SC in "${SCENES[@]}"; do
     echo "== online: scene $SC =="
     env ROMAP_DEMO_SCENE="$SC" ROMAP_DEMO_SPARSE_DEPTH=1 ROMAP_DENSE_VIEWS=1 \
       ROMAP_NO_VIDEO=1 timeout -k 30 2100 \
-      "$REPO/examples/run_online_demo.sh" "$OUT" 300 tpu \
+      "$REPO/examples/run_online_demo.sh" "$OUT" 300 gpu \
       || echo "(online run failed: $SC)"
   else
     echo "== online: scene $SC already done =="

@@ -14,7 +14,7 @@ If loss(gt) << loss(refined): the refiner leaves pose error on the table —
 invest in refinement. If loss(gt) ~= loss(refined): eval poses are solved
 and the residual PSNR gap is field quality — invest in training.
 
-usage: python scripts/gt_pose_probe.py /tmp/romap_dbg_tpu/ckpt \
+usage: python scripts/gt_pose_probe.py /tmp/romap_dbg/ckpt \
           /tmp/romap_tpu_E/dataset [--steps 300]
 """
 

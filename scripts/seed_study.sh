@@ -2,7 +2,7 @@
 # Multi-seed online robustness study (VERDICT round-2 item 1's >=3-run
 # criterion). Same-seed runs are bit-identical since the heap-layout
 # determinism fix, so spread comes from varying the scene draw
-# (ROMAP_DEMO_SEED). Each run = full online pipeline on TPU:
+# (ROMAP_DEMO_SEED). Each run = full online pipeline on the GPU:
 # dense-view + sparse-depth + refined eval poses, 300-iter waves.
 #
 # usage: scripts/seed_study.sh <out_root> <mode:dense|kf> <seed> [<seed>...]
@@ -18,7 +18,7 @@ for SEED in "$@"; do
     echo "== $MODE seed $SEED: already done =="
     continue
   fi
-  # a previous timed-out run may have left its server holding the TPU
+  # a previous timed-out run may have left its server holding the card
   if [ -f "$OUT/server.pid" ]; then
     kill "$(cat "$OUT/server.pid")" 2>/dev/null || true
     sleep 2
@@ -31,7 +31,7 @@ for SEED in "$@"; do
   # -k 30: SIGKILL grace period; the demo script traps TERM and kills its
   # server + mono_tum children (the EXIT trap alone never ran on timeout)
   env "${ENV[@]}" timeout -k 30 2100 "$REPO/examples/run_online_demo.sh" \
-    "$OUT" 300 tpu || echo "(run failed: $MODE seed $SEED)"
+    "$OUT" 300 gpu || echo "(run failed: $MODE seed $SEED)"
   # only append a row when eval.json exists — failed runs are retried on
   # the next invocation (appending error rows would duplicate keys)
   if [ -f "$OUT/eval.json" ]; then

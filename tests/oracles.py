@@ -93,3 +93,53 @@ def hashgrid_encode_ref(table, x, spec):
                 acc += w * table[off + idx].astype(np.float64)
             out[pi, lvl * spec.n_features : (lvl + 1) * spec.n_features] = acc
     return out
+
+
+def _tent(xv: float, r: int) -> np.ndarray:
+    """Linear-interpolation weights of coordinate xv in [0,1] at resolution r."""
+    xs = float(xv) * (r - 1)
+    return np.array([max(0.0, 1.0 - abs(xs - i)) for i in range(r)])
+
+
+def mxgrid_encode_ref(factors, x, spec):
+    """Per-point loop oracle of ops/mxgrid.encode, in float64.
+
+    CP part: per axis, the concatenated tent basis of every ladder level
+    dotted with that axis' line weights, then the product of the three axis
+    factors. With spec.snap_levels each coarse tent is evaluated through the
+    finest level: its value at the fine grid's nodes, interpolated by the
+    fine tent weights. Plane part: per level and axis triple (u, v, w), the
+    bilinear plane sample times the linear sample of the orthogonal line.
+    """
+    if isinstance(factors, dict):
+        lines = np.asarray(factors["lines"], np.float64)
+    else:
+        lines = np.asarray(factors, np.float64)
+    x = np.asarray(x, np.float64)
+    rf = max(spec.resolutions)
+    nodes = np.arange(rf) / (rf - 1)
+    out = []
+    for p in x:
+        cp = np.ones(spec.features)
+        for d in range(3):
+            basis = []
+            for r in spec.resolutions:
+                if spec.snap_levels:
+                    fine = _tent(p[d], rf)
+                    basis.extend(
+                        sum(fine[j] * _tent(nodes[j], r)[b] for j in range(rf))
+                        for b in range(r))
+                else:
+                    basis.extend(_tent(p[d], r))
+            cp = cp * (np.asarray(basis) @ lines[d])
+        feats = [cp]
+        for lvl, (ru, rv, kp) in enumerate(spec.plane_specs):
+            for i, (u, v, w) in enumerate(spec.plane_axes):
+                plane = np.asarray(factors["planes"][lvl][i], np.float64)
+                line = np.asarray(factors["plane_lines"][lvl][i], np.float64)
+                hu, hv = _tent(p[u], ru), _tent(p[v], rv)
+                f_pl = np.einsum("a,b,abk->k", hu, hv, plane)
+                f_li = _tent(p[w], max(ru, rv)) @ line
+                feats.append(f_pl * f_li)
+        out.append(np.concatenate(feats))
+    return np.stack(out)

@@ -1,4 +1,4 @@
-"""Encoding quality parity: the TPU-native mxgrid must match (or beat) the
+"""Encoding quality parity: the gather-free mxgrid must match (or beat) the
 reference-semantics hash grid on the same scene/budget — the evidence behind
 making mxgrid the flagship (BASELINE.md targets per-object PSNR parity)."""
 

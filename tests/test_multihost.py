@@ -31,8 +31,8 @@ def _free_port() -> int:
 
 def test_two_process_losses_match_single_process():
     if jax.default_backend() != "cpu":
-        pytest.skip("workers are CPU-pinned fp32; a TPU parent (bf16, "
-                    "ROMAP_TEST_TPU=1) is not comparable at fp32 tolerance")
+        pytest.skip("workers are CPU-pinned fp32; an accelerator parent "
+                    "(bf16) is not comparable at fp32 tolerance")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     port = _free_port()
     env = dict(os.environ)

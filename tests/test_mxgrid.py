@@ -1,10 +1,13 @@
-"""MX-grid encoding: shapes, continuity, chunking equivalence, gradients."""
+"""MX-grid encoding: shapes, continuity, chunking equivalence, gradients,
+a straight-line NumPy oracle, and the bf16 precision contract."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from romap_tpu.ops import mxgrid
+from tests.oracles import mxgrid_encode_ref
 
 RNG = np.random.default_rng(3)
 
@@ -101,3 +104,99 @@ def test_encoding_presets():
         raise AssertionError("expected ValueError")
     except ValueError as e:
         assert "nope" in str(e)
+
+
+ORACLE_SPECS = {
+    "cp_only": dict(n_levels=3, base_resolution=4, max_resolution=32,
+                    features=8),
+    "square_plane": dict(n_levels=3, base_resolution=4, max_resolution=32,
+                         features=8, plane_res=12, plane_features=4),
+    "rect_plane": dict(n_levels=2, base_resolution=4, max_resolution=16,
+                       features=8, plane_specs=((8, 24, 4),)),
+    "balanced_axes": dict(n_levels=2, base_resolution=4, max_resolution=16,
+                          features=8, plane_specs=((24, 8, 4),),
+                          plane_axes="balanced"),
+    "plane_ladder": dict(n_levels=2, base_resolution=4, max_resolution=16,
+                         features=8, plane_specs=((8, 4), (16, 8, 3))),
+    "snapped": dict(n_levels=3, base_resolution=4, max_resolution=32,
+                    features=8, plane_specs=((12, 8, 4),),
+                    plane_axes="balanced", snap_levels=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ORACLE_SPECS))
+def test_encode_matches_numpy_oracle(name):
+    """encode (chunked, vectorized, checkpointed) == per-point loop oracle."""
+    spec = mxgrid.make_mxspec(chunk=16, **ORACLE_SPECS[name])
+    factors = mxgrid.init_mxgrid(jax.random.PRNGKey(21), spec)
+    pts = RNG.uniform(0, 1, (37, 3)).astype(np.float32)  # 3 chunks, padded
+    got = np.asarray(mxgrid.encode(factors, jnp.asarray(pts), spec))
+    want = mxgrid_encode_ref(factors, pts, spec)
+    assert got.shape == want.shape == (37, spec.n_output_dims)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _flagship_setup():
+    from romap_tpu.config import NerfConfig
+    from romap_tpu.models import nerf
+
+    spec = nerf.make_field_spec(NerfConfig())  # resolution 192, snapped
+    f32 = mxgrid.init_mxgrid(jax.random.PRNGKey(0), spec)
+    f16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), f32)
+    pts = jax.random.uniform(jax.random.PRNGKey(1), (2048, 3))
+    return spec, f32, f16, pts
+
+
+@pytest.mark.parametrize("part", ["forward", "gradient"])
+def test_bf16_params_stay_within_parameter_rounding_of_fp32(part):
+    """Precision contract: with bf16 parameters, points and tent bases stay
+    fp32 and products accumulate in fp32, so the encode differs from fp32
+    only by the parameters' bf16 rounding (~0.5% relative at flagship
+    width). Rounding the points to bf16 instead puts them ~0.75 of a cell
+    off at resolution 192 (tens of percent)."""
+    spec, f32, f16, pts = _flagship_setup()
+    if part == "forward":
+        a = np.asarray(mxgrid.encode(f32, pts, spec))
+        b = np.asarray(mxgrid.encode(f16, pts, spec), np.float32)
+        assert np.mean(np.abs(a - b)) / np.mean(np.abs(a)) < 1e-2
+        return
+    tgt = jax.random.normal(jax.random.PRNGKey(2), (2048, spec.n_output_dims))
+    loss = lambda f: jnp.sum(
+        (mxgrid.encode(f, pts, spec).astype(jnp.float32) - tgt) ** 2)
+    g32, g16 = jax.grad(loss)(f32), jax.grad(loss)(f16)
+    for a, b in zip(jax.tree.leaves(g16), jax.tree.leaves(g32)):
+        a, b = np.asarray(a, np.float32), np.asarray(b)
+        assert np.linalg.norm(a - b) / np.linalg.norm(b) < 2e-2
+
+
+def test_snap_levels_exact_when_knots_align():
+    """When every (r_l - 1) divides (r_fine - 1) the folded basis IS the
+    original basis: snap_levels must be numerically a no-op (resolutions
+    3, 5, 9: coarse knots all land on fine nodes)."""
+    mk = lambda snap: mxgrid.make_mxspec(
+        n_levels=3, base_resolution=3, max_resolution=9, features=8,
+        snap_levels=snap)
+    s0, s1 = mk(False), mk(True)
+    assert s0.resolutions == (3, 5, 9)
+    factors = jnp.asarray(RNG.normal(size=(3, s0.total_res, 8)), jnp.float32)
+    pts = jnp.asarray(RNG.uniform(0, 1, (410, 3)), jnp.float32)
+    want = np.asarray(mxgrid.encode(factors, pts, s0))
+    got = np.asarray(mxgrid.encode(factors, pts, s1))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_vmap_over_objects_matches_per_object_loop():
+    """The batched object table vmaps encode over objects: each row must
+    equal encoding that object alone."""
+    s = mxgrid.make_mxspec(n_levels=3, base_resolution=4, max_resolution=32,
+                           features=16, plane_specs=((24, 16, 8),),
+                           plane_axes="balanced", snap_levels=True, chunk=256)
+    keys = jax.random.split(jax.random.PRNGKey(8), 4)
+    factors = jax.vmap(lambda k: mxgrid.init_mxgrid(k, s))(keys)
+    pts = jnp.asarray(RNG.uniform(0, 1, (4, 520, 3)), jnp.float32)
+    got = np.asarray(jax.vmap(lambda f, p: mxgrid.encode(f, p, s))(factors, pts))
+    for i in range(4):
+        one = jax.tree.map(lambda a: a[i], factors)
+        np.testing.assert_allclose(
+            got[i], np.asarray(mxgrid.encode(one, pts[i], s)),
+            rtol=1e-5, atol=1e-5)

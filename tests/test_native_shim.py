@@ -87,3 +87,17 @@ def test_watchdog_stall_detection(monkeypatch):
     assert msg2 is not None
     srv._inflight = None
     assert srv._watchdog_check(200.0) is None  # op completed
+
+
+@pytest.mark.parametrize("platform,ok", [("gpu", True), ("cpu", True),
+                                         ("tpu", False)])
+def test_server_platform_choices(platform, ok):
+    """--platform takes gpu or cpu; any other value is refused."""
+    from romap_tpu.runtime.server import build_parser
+
+    argv = ["--socket", "/nonexistent.sock", "--platform", platform]
+    if ok:
+        assert build_parser().parse_args(argv).platform == platform
+    else:
+        with pytest.raises(SystemExit):
+            build_parser().parse_args(argv)

@@ -1,5 +1,5 @@
 """Multi-device object-axis sharding on the 8-virtual-device CPU mesh
-(stand-in for a v5e-8, SURVEY.md §4e) + the driver entry contract."""
+(stand-in for a multi-card host, SURVEY.md §4e) + the driver entry contract."""
 
 import jax
 import numpy as np

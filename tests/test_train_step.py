@@ -1,7 +1,7 @@
 """Batched multi-object train step: convergence, slot masking, determinism.
 
 Runs on CPU with a shrunken config (few rays/samples, small encoding) — the
-pipeline is identical to the TPU flagship, only sizes differ.
+pipeline is identical to the flagship, only sizes differ.
 """
 
 import dataclasses
